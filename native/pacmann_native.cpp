@@ -1,7 +1,7 @@
 // pacmann_native — host-tier compute kernels (C ABI, loaded via ctypes).
 //
-// The TPU build keeps the server scans and hint generation on the TPU
-// (Pallas/XLA); this library covers the *host* tier the same way the
+// The GPU build keeps the server scans and hint generation on the device
+// (XLA); this library covers the *host* tier the same way the
 // reference covers it with hand assembly:
 //   * AES-128-MMO PRF     (reference: pianopir/aes_amd64.s:19-126 AES-NI)
 //   * XOR parity scan     (reference: pianopir/aes_amd64.s:133-157 AVX2)

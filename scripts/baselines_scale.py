@@ -2,13 +2,13 @@
 scripts/e2e_scale.py — anchors the comparison table the way the reference's
 ngt-report.txt / cluster-report.txt do (C15/C16):
 
-  exact   — MXU linear scan (recall 1.0 by construction; quality UPPER
+  exact   — linear scan (recall 1.0 by construction; quality UPPER
             bound, the role NGT's 0.999 plays in the reference)
   cluster — Tiptoe-style k-means + in-cluster scan (quality LOWER bound,
             reference: 0.391 on SIFT1M)
 
 Usage: python scripts/baselines_scale.py [--n 1000000] [--latent 16]
-Writes reports/{exact,cluster}-{tag}-report.txt.
+Writes runs/{exact,cluster}-{tag}-report.txt (runs/ is not committed).
 """
 
 import argparse
@@ -35,7 +35,8 @@ def main():
     kind = "continuum" if args.continuum else "clustered"
     tag = f"{n}_{kind}_l{args.latent}"
 
-    from scripts.e2e_scale import synth_continuum, synth_vectors
+    from pacmann.io.synth import synth_continuum
+    from scripts.e2e_scale import synth_vectors
 
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -47,19 +48,20 @@ def main():
     queries = vectors[rng.choice(n, Q, replace=False)] \
         + 0.1 * rng.standard_normal((Q, d)).astype(np.float32)
 
-    from pacmann_tpu.graph.recall import brute_force_knn, compute_recall
+    from pacmann.graph.recall import brute_force_knn, compute_recall
 
     t0 = time.time()
     gnd = brute_force_knn(vectors, queries, k)
     print(f"gnd: {time.time()-t0:.1f}s", flush=True)
 
-    os.makedirs("reports", exist_ok=True)
+    os.makedirs("runs", exist_ok=True)
 
-    # ---- exact MXU scan (quality upper bound; ngt-search.go role)
+    # ---- exact scan (quality upper bound; ngt-search.go role)
     import jax
     import jax.numpy as jnp
 
-    from pacmann_tpu.ops.distance import l2_distance_xla
+    from pacmann.ops.distance import l2_distance_xla
+    from pacmann.utils.platform import card_name_power
 
     v_dev = jnp.asarray(vectors)
     q_dev = jnp.asarray(queries)
@@ -76,27 +78,27 @@ def main():
     dt = time.perf_counter() - t0
     rec = compute_recall(gnd, ids, k)
     lines = [
-        f"Exact MXU scan baseline (quality upper bound; NGT role, "
+        f"Exact scan baseline (quality upper bound; NGT role, "
         f"ngt-search.go:68-294)",
         f"n {n} dim {d} k {k} queries {Q} data {kind} latent={args.latent}",
         f"Avg query time: {dt/Q*1000:.3f} ms "
-        f"({n*Q/max(dt,1e-9)/1e9:.2f} G dist/s, one TPU v5e chip)",
+        f"({n*Q/max(dt,1e-9)/1e9:.2f} G dist/s on {card_name_power()})",
         f"Recall@{k}: {rec:.4f}",
         f"(reference NGT on SIFT1M: recall 0.999, 1.03 ms/query)",
     ]
-    path = f"reports/exact-{tag}-report.txt"
+    path = f"runs/exact-{tag}-report.txt"
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines), flush=True)
 
     # ---- cluster baseline (quality lower bound; cluster-search.py role)
-    from pacmann_tpu.graph.cluster import ClusterSearcher
+    from pacmann.graph.cluster import ClusterSearcher
 
     K = int(np.sqrt(n))
     t0 = time.time()
     cs = ClusterSearcher(vectors, n_clusters=K, n_iter=10, seed=0)
     build_s = time.time() - t0
-    # compile warmup at the timed block shape (remote compile: 10-100 s)
+    # compile warmup at the timed block shape
     cs.search(queries[: cs.QUERY_BLOCK], k)
     t0 = time.perf_counter()
     ids_c = cs.search(queries, k)
@@ -112,7 +114,7 @@ def main():
         f"(reference FAISS cluster baseline on SIFT1M: recall 0.391, "
         f"0.374 ms/query)",
     ]
-    path = f"reports/cluster-{tag}-report.txt"
+    path = f"runs/cluster-{tag}-report.txt"
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines), flush=True)

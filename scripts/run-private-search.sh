@@ -5,7 +5,7 @@
 # without them the driver generates synthetic data.
 set -euo pipefail
 cd "$(dirname "$0")/.."
-python -m pacmann_tpu.cli.private_search \
+python -m pacmann.cli.private_search \
   -n "${N:-1000000}" -d 128 -m 32 -k 10 -q "${Q:-100}" \
   -step 20 -parallel 3 -rtt 50 \
   -engine device-fused -concurrent "${CONCURRENT:-8}" \

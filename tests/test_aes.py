@@ -2,14 +2,15 @@
 
 Mirrors the correctness half of the reference's TestAESPerf
 (/root/reference/pianopir/pir_test.go:334-377); since our AES is a from-scratch
-TPU circuit, we additionally pin it to the official FIPS-197 known-answer test.
+bitsliced circuit, we additionally pin it to the official FIPS-197 known-answer
+test.
 """
 
 import numpy as np
 import pytest
 
-from pacmann_tpu.ops import aes, aes_host, gf2
-from pacmann_tpu.ops.bitops import transpose32_np
+from pacmann.ops import aes, aes_host, gf2
+from pacmann.ops.bitops import transpose32_np
 
 
 def test_sbox_known_values():
@@ -85,48 +86,57 @@ def test_prf_mmo_low_words_match_host():
     assert np.array_equal(got, want)
 
 
+def _host_table(key, T, S, mask):
+    rk = aes_host.expand_key(key)
+    return (aes_host.prf_eval_u64(
+        rk, np.arange(T, dtype=np.uint64)[:, None],
+        np.arange(S, dtype=np.uint64)[None, :])
+        & np.uint64(mask)).astype(np.uint32)
+
+
 def test_prf_table_on_device_matches_host():
-    """The TPU-only table circuit is backend-agnostic jit code — pin it to
-    the host AES oracle on the CPU backend (it has no other CPU callers)."""
+    """The single-key table program (lax.map body of the engine's device
+    tables) pinned to the host AES oracle on the CPU backend."""
     rng = np.random.default_rng(7)
     key = rng.bytes(16)
-    rk = aes_host.expand_key(key)
     km = aes.expand_key_planes(key)
     T, S, mask = 37, 12, 1023
     got = np.asarray(aes._prf_table_on_device(km, T, S, mask))
-    want = (
-        aes_host.prf_eval_u64(
-            rk, np.arange(T, dtype=np.uint64)[:, None],
-            np.arange(S, dtype=np.uint64)[None, :])
-        & np.uint64(mask)
-    ).astype(np.uint32)
-    assert np.array_equal(got, want)
+    assert np.array_equal(got, _host_table(key, T, S, mask))
 
 
-def test_prf_tables_fused_matches_host():
-    """Fused all-partition table circuit (TPU fast path) vs the host oracle."""
-    rng = np.random.default_rng(8)
-    keys = [rng.bytes(16) for _ in range(3)]
-    T, S, mask = 21, 9, 255
+@pytest.mark.parametrize("P,T,S,mask", [
+    (1, 37, 12, 1023),
+    (3, 21, 9, 255),
+    (2, 64, 16, (1 << 16) - 1),
+    (4, 5, 3, 1),
+])
+def test_device_prf_tables_match_host(P, T, S, mask):
+    """The offline table program of the "gpu" backend
+    (device_engine._prf_tables: the bitsliced circuit mapped over
+    partitions) is bit-exact against the NumPy AES oracle, and so is the
+    "cpu" backend's host table (native AES-NI when built)."""
+    from pacmann.pir.device_engine import _prf_tables
+
+    rng = np.random.default_rng(7 + P + T)
+    keys = [rng.bytes(16) for _ in range(P)]
     masks = np.stack([aes.expand_key_planes(k) for k in keys])
-    got = np.asarray(aes._prf_tables_fused(masks, T, S, mask))
+    got = np.asarray(_prf_tables(masks, T=T, S=S, chunk_mask=mask))
     for p, key in enumerate(keys):
-        rk = aes_host.expand_key(key)
-        want = (
-            aes_host.prf_eval_u64(
-                rk, np.arange(T, dtype=np.uint64)[:, None],
-                np.arange(S, dtype=np.uint64)[None, :])
-            & np.uint64(mask)
-        ).astype(np.uint32)
+        want = _host_table(key, T, S, mask)
         assert np.array_equal(got[p], want), f"partition {p}"
+        assert np.array_equal(aes.prf_offset_table_host(key, T, S, mask),
+                              want), f"host partition {p}"
 
 
-def test_prf_eval_fused_matches_host():
+@pytest.mark.parametrize("P,L,mask", [(4, 96, 511), (1, 32, 65535),
+                                      (3, 45, 127), (2, 7, 4095)])
+def test_prf_eval_fused_matches_host(P, L, mask):
     """Per-partition-keyed batched PRF (table-free client primitive) vs
-    the host AES-NI/NumPy oracle at arbitrary (tag, x) points."""
-    rng = np.random.default_rng(11)
-    keys = [rng.bytes(16) for _ in range(4)]
-    P, L, mask = 4, 96, 511
+    the host AES oracle at arbitrary (tag, x) points, including lane counts
+    that are not a multiple of the 32-lane packing granule."""
+    rng = np.random.default_rng(11 + L)
+    keys = [rng.bytes(16) for _ in range(P)]
     masks = np.stack([aes.expand_key_planes(k) for k in keys])
     tags = rng.integers(0, 1 << 20, size=(P, L)).astype(np.uint32)
     xs = rng.integers(0, 1 << 16, size=(P, L)).astype(np.uint32)
@@ -162,7 +172,7 @@ def test_prf_offsets_masking(chunk_size):
 def test_bp_sbox_matches_chain_and_table():
     """Boyar-Peralta S-box circuit vs the addition-chain twin and the
     field-derived table, on random bit planes."""
-    from pacmann_tpu.ops import gf2
+    from pacmann.ops import gf2
     import jax.numpy as jnp
 
     rng = np.random.default_rng(11)

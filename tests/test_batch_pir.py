@@ -7,8 +7,8 @@ from the Go test's 1M x 128B for CPU speed."""
 
 import numpy as np
 
-from pacmann_tpu.pir.batch import SimpleBatchPianoPIR
-from pacmann_tpu.pir.params import QUERY_PER_PARTITION, derive_batch_params
+from pacmann.pir.batch import SimpleBatchPianoPIR
+from pacmann.pir.params import QUERY_PER_PARTITION, derive_batch_params
 
 
 def _mk(rng, n=8192, entry_bytes=32, batch=32, fail=20):
@@ -100,8 +100,8 @@ def test_fcfs_success_matches_analytic_contract():
     the strict single-round contract the model describes (the default one
     retry round re-serves drops and lifts success above it — covered by
     test_query_retry_*)."""
-    from pacmann_tpu.pir.device_engine import DevicePianoEngine
-    from pacmann_tpu.pir.params import expected_success_rate
+    from pacmann.pir.device_engine import DevicePianoEngine
+    from pacmann.pir.params import expected_success_rate
 
     rng = np.random.default_rng(24)
     n, entry_bytes, batch = 8192, 32, 32
@@ -132,7 +132,7 @@ def test_expected_success_rate_edges():
     recursion would hit 0*inf) is exact min(q,B)/B; q >= B serves all."""
     import math
 
-    from pacmann_tpu.pir.params import expected_success_rate
+    from pacmann.pir.params import expected_success_rate
 
     v = expected_success_rate(10, 1, 3, 8)
     assert not math.isnan(v)

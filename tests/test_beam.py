@@ -1,14 +1,14 @@
-"""Beam search: the vectorized TPU engine (graph/beam.py) against the
+"""Beam search: the vectorized device engine (graph/beam.py) against the
 host-tier reference twin (graph/beam_host.py), plus graph-build quality
 (the role of TestBuildGraphAndSearch / TestSearchQuality,
 graphann_test.go:60-213, on synthetic data)."""
 
 import numpy as np
 
-from pacmann_tpu.graph.beam import PlaintextEngine
-from pacmann_tpu.graph.beam_host import BasicGraphOracle, BeamSearcher
-from pacmann_tpu.graph.build import build_graph
-from pacmann_tpu.graph.recall import (
+from pacmann.graph.beam import PlaintextEngine
+from pacmann.graph.beam_host import BasicGraphOracle, BeamSearcher
+from pacmann.graph.build import build_graph
+from pacmann.graph.recall import (
     brute_force_knn,
     compute_recall,
     evaluate_graph_quality,

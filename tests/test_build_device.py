@@ -5,7 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pacmann_tpu.graph.build import (
+from pacmann.graph.build import (
+    build_graph,
     _conn_lists_device,
     _kmeans_bootstrap,
     _prune_or_keep_device,
@@ -84,7 +85,7 @@ def test_build_graph_compact_u8_matches_f32():
     """u8 host vectors (the bvecs compact-upload path) build the exact
     same graph as their eager-f32 form: u8 -> f32 widening is exact, so
     every distance — and therefore every edge decision — is identical."""
-    from pacmann_tpu.graph.build import build_graph, choose_start_ids
+    from pacmann.graph.build import build_graph, choose_start_ids
 
     rng = np.random.default_rng(11)
     v_u8 = rng.integers(0, 256, size=(512, 24), dtype=np.uint8)
@@ -103,7 +104,7 @@ def test_wide_round_sliced_matches_single():
     per slice + blocked pairwise merge, probe_wide_fault) selects the
     exact same candidate set as the single-program wide round: same
     distances, same ids, only top-k tie order may differ."""
-    from pacmann_tpu.graph.build import _nn_round_device, _wide_round_sliced
+    from pacmann.graph.build import _nn_round_device, _wide_round_sliced
 
     rng = np.random.default_rng(5)
     n, d, m, blk, out_m = 2048, 24, 16, 256, 24
@@ -124,3 +125,13 @@ def test_wide_round_sliced_matches_single():
     for r in range(n):
         assert (set(i1[r][np.isfinite(d1[r])])
                 == set(i8[r][np.isfinite(d8[r])]))
+
+
+def test_precompiled_phases_build_the_same_graph():
+    """build_graph's ahead-of-time compile pool (the "gpu" default) runs the
+    same phase programs as the plain jitted calls: identical graphs."""
+    rng = np.random.default_rng(12)
+    vecs = rng.random((3000, 16), dtype=np.float32)
+    a = build_graph(vecs, 8, rounds=2, seed=1, precompile=True)
+    b = build_graph(vecs, 8, rounds=2, seed=1, precompile=False)
+    assert np.array_equal(a, b)

@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from pacmann_tpu.graph.cluster import ClusterSearcher, kmeans
-from pacmann_tpu.graph.recall import brute_force_knn, compute_recall
+from pacmann.graph.cluster import ClusterSearcher, kmeans
+from pacmann.graph.recall import brute_force_knn, compute_recall
 
 
 def _clustered_data(rng, n_clusters=16, per=128, d=8):

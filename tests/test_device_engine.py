@@ -2,9 +2,93 @@
 device memory (TestBatchPIRBasic semantics, pir_test.go:60-202, plus the
 budget/refresh behavior of TestPIRBasic, :9-58)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from pacmann_tpu.pir.device_engine import DevicePianoEngine
+from pacmann.pir.device_engine import DevicePianoEngine
+
+
+def claim_select_np(slot_col, prog, chunk_q, off_q, real_q, *, C, dpp):
+    """NumPy sequential twin of the Phase-A claim (pir.go:404-419 scanned
+    round by round): round q takes the first eligible primary slot not
+    claimed by an earlier round. The oracle for _pir_select's XLA owner
+    fixpoint."""
+    Q, P = chunk_q.shape
+    Hp = slot_col.shape[2]
+    hit = np.zeros((Q, P), np.int32)
+    found = np.zeros((Q, P), bool)
+    prog_set = prog != np.uint32(dpp)
+    prog_chunk = (prog // np.uint32(C)).astype(np.int64)
+    for p in range(P):
+        claimed = np.zeros(Hp, bool)
+        for q in range(Q):
+            if not real_q[q, p]:
+                continue
+            ck = int(chunk_q[q, p])
+            elig = ((slot_col[p, ck].astype(np.int64) == int(off_q[q, p]))
+                    & (~prog_set[p] | (prog_chunk[p] != ck)) & ~claimed)
+            idx = np.flatnonzero(elig)
+            if idx.size:
+                hit[q, p] = idx[0]
+                found[q, p] = True
+                claimed[idx[0]] = True
+    return hit, found
+
+
+def _rand_claim_case(rng, Q, P, S, Hp, C, contention=False):
+    dpp = 0x7FFFFFFF
+    slot_col = rng.integers(0, C, size=(P, S, Hp)).astype(np.uint16)
+    prog = rng.integers(0, S * C, size=(P, Hp)).astype(np.uint32)
+    unset = rng.random((P, Hp)) < 0.5
+    prog[unset] = dpp
+    if contention:
+        # every round asks the same (chunk, offset): all rounds contest
+        # one eligible slot set per partition
+        chunk_q = np.full((Q, P), rng.integers(0, S), np.int32)
+        off_q = np.full((Q, P), rng.integers(0, C), np.uint32)
+    else:
+        chunk_q = rng.integers(0, S, size=(Q, P)).astype(np.int32)
+        off_q = rng.integers(0, C, size=(Q, P)).astype(np.uint32)
+    real_q = rng.random((Q, P)) < 0.9
+    return slot_col, prog, chunk_q, off_q, real_q, dpp
+
+
+@pytest.mark.parametrize("Q,P,S,Hp,C", [(16, 4, 8, 480, 32),
+                                        (8, 2, 4, 256, 64),
+                                        (24, 3, 5, 896, 128),
+                                        (32, 2, 4, 256, 16)])
+@pytest.mark.parametrize("contention", [False, True])
+def test_owner_fixpoint_claim_matches_sequential(Q, P, S, Hp, C, contention):
+    """_pir_select's XLA owner-fixpoint claim reproduces the strictly
+    sequential greedy claim (claim_select_np) — same hit slots, same
+    failures — across shapes and contention, and claims are unique."""
+    from pacmann.pir.device_engine import _pir_select
+
+    rng = np.random.default_rng(7 + Q + Hp + contention)
+    slot_col, prog, chunk_q, off_q, real_q, dpp = _rand_claim_case(
+        rng, Q, P, S, Hp, C, contention)
+    R, max_q = 4 * Q, 10 * Q       # budgets never bind: ok == found
+    idx_q = np.where(real_q, chunk_q * C + off_q.astype(np.int64),
+                     -1).astype(np.int32)
+    T = Hp + S * R
+    carry = (jnp.zeros((P, Hp), jnp.int32), jnp.asarray(prog),
+             jnp.zeros((P, 1, 1), jnp.uint32), jnp.asarray(slot_col),
+             jnp.zeros((P, S), jnp.int32), jnp.zeros((P,), jnp.int32))
+    sel, _ = _pir_select(
+        jnp.zeros((P, T, S), jnp.uint16), jnp.zeros((P, S, R), jnp.uint32),
+        carry, jnp.asarray(idx_q),
+        jnp.zeros((Q, P, S), jnp.uint32), C=C, R=R, Hp=Hp, S=S, k=1,
+        max_q=max_q, dpp=dpp)
+    hit, ok = np.asarray(sel[0]), np.asarray(sel[1])
+    hit_np, found_np = claim_select_np(
+        slot_col, prog, chunk_q, off_q, real_q, C=C, dpp=dpp)
+    assert np.array_equal(ok, found_np)
+    assert np.array_equal(np.where(ok, hit, 0), np.where(found_np, hit_np, 0))
+    for p in range(P):
+        taken = hit[ok[:, p], p]
+        assert len(set(taken.tolist())) == len(taken)
 
 
 def _mk(rng, n=8192, entry_bytes=32, batch=32, fail=20):
@@ -186,9 +270,7 @@ def test_phase_a_contention_matches_sequential_oracle():
     SEQUENTIAL greedy outcome (pir.go:404-419 scanned round by round) —
     identical found/failed sets as the NumPy sequential twin at any
     contention depth — and successful rounds must stay exact."""
-    from pacmann_tpu.ops.protocol_kernels import claim_select_np
-    from pacmann_tpu.pir.device_engine import DevicePianoEngine
-    from pacmann_tpu.pir.params import DEFAULT_PROGRAM_POINT
+    from pacmann.pir.params import DEFAULT_PROGRAM_POINT
 
     rng = np.random.default_rng(60)
     n, batch, fail = 2048, 32, 20
@@ -237,7 +319,7 @@ def test_protocol_miss_rate_within_failure_bound():
     the 2^-failLog2-derived bound: P(miss) ~ e^-(Hp/C) <= 2^-(fail+1).
     Uses one real sub-query per partition per batch (no FCFS drops, no
     contention) so every failure is a genuine hit-scan miss."""
-    from pacmann_tpu.pir.device_engine import DevicePianoEngine
+    from pacmann.pir.device_engine import DevicePianoEngine
 
     rng = np.random.default_rng(61)
     n, batch, fail = 2048, 32, 2  # small fail -> measurable miss rate
@@ -274,14 +356,11 @@ def test_device_nondivisible_padding():
 
 
 def test_fused_prep_matches_split_path():
-    """The single-program TPU offline path (_prep_fused) must produce
-    bit-identical state to the CPU split path given the same RNG stream
-    (device bitsliced AES == host AES oracle; mm kernel == XLA scan).
-    Called directly on the CPU backend (pallas in interpret mode)."""
-    import jax.numpy as jnp
-
-    from pacmann_tpu.ops import aes
-    from pacmann_tpu.pir.device_engine import _prep_fused
+    """The single-program offline path of the "gpu" backend (_prep_fused)
+    must produce bit-identical state to the "cpu" path (host AES tables)
+    given the same RNG stream. Called directly on the CPU backend."""
+    from pacmann.ops import aes
+    from pacmann.pir.device_engine import _prep_fused
 
     rng = np.random.default_rng(60)
     n, entry_bytes, batch = 4096, 32, 32
@@ -301,7 +380,7 @@ def test_fused_prep_matches_split_path():
                 & np.uint64(p.chunk_mask)).astype(np.uint32)
     masks = np.stack([aes.expand_key_planes(rng2.bytes(16))
                       for _ in range(P)])
-    table, parities, repl_val, slot_col, chk = _prep_fused(
+    table, parities, repl_val, slot_col = _prep_fused(
         pir.db, jnp.asarray(masks), jnp.asarray(repl_off),
         T=T, S=S, C=C, Hp=Hp, R=R, k=pir.k, chunk_mask=p.chunk_mask)
 
@@ -314,7 +393,6 @@ def test_fused_prep_matches_split_path():
                           np.asarray(pir.state["backup_parity"]))
     assert np.array_equal(np.asarray(repl_val),
                           np.asarray(pir.state["repl_val"]))
-    int(np.asarray(chk))  # checksum is a real scalar
 
 
 def test_table_free_bit_identical():
@@ -347,14 +425,11 @@ def test_table_free_bit_identical():
 
 def test_big_tier_two_program_prep_matches_fused():
     """The >4 GiB two-program offline phase (_prep_tables_big +
-    _prep_scan_big, run at the SIFT100M shard so phase-A transients free
-    before phase B allocates) must produce exactly the single fused
-    program's outputs — same tables, parities, replacement values, slot
-    columns, and checksum."""
-    import jax.numpy as jnp
-
-    from pacmann_tpu.ops import aes
-    from pacmann_tpu.pir import device_engine as de
+    _prep_scan_big, so phase-A transients free before phase B allocates)
+    must produce exactly the single fused program's outputs — same
+    tables, parities, replacement values and slot columns."""
+    from pacmann.ops import aes
+    from pacmann.pir import device_engine as de
 
     rng = np.random.default_rng(77)
     n, entry_bytes, batch = 4096, 16, 8
@@ -369,16 +444,68 @@ def test_big_tier_two_program_prep_matches_fused():
     repl_off = jnp.asarray(
         rng.integers(0, C, size=(P, S, R), dtype=np.uint32))
 
-    f_table, f_par, f_repl, f_slot, f_chk = de._prep_fused(
+    f_table, f_par, f_repl, f_slot = de._prep_fused(
         eng.db, masks, repl_off, T=T, S=S, C=C, Hp=Hp, R=R, k=eng.k,
         chunk_mask=p.chunk_mask)
     table, slot_col = de._prep_tables_big(
         masks, T=T, S=S, C=C, Hp=Hp, chunk_mask=p.chunk_mask)
-    par, repl, chk = de._prep_scan_big(
-        eng.db, table, slot_col, repl_off, T=T, S=S, Hp=Hp, R=R, k=eng.k)
+    par, repl = de._prep_scan_big(
+        eng.db, table, repl_off, T=T, S=S, Hp=Hp, R=R, k=eng.k)
 
     assert np.array_equal(np.asarray(table), np.asarray(f_table))
     assert np.array_equal(np.asarray(slot_col), np.asarray(f_slot))
     assert np.array_equal(np.asarray(par), np.asarray(f_par))
     assert np.array_equal(np.asarray(repl), np.asarray(f_repl))
-    assert int(chk) == int(f_chk)
+
+
+def test_finish_scatter_matches_dense():
+    """The row-targeted scatter refresh and the dense streaming rewrite
+    produce identical carries and entries — fuzzed over random state,
+    unique hit slots, denial masks, and OOB-dropped failures."""
+    import os
+
+    from pacmann.pir.device_engine import _pir_finish
+
+    rng = np.random.default_rng(15)
+    for Q, P, S, Hp, C, R, k in [(6, 4, 8, 480, 32, 5, 1),
+                                 (16, 3, 5, 896, 128, 7, 2)]:
+        T = Hp + S * R
+        Ep = k * 128
+        tag = rng.integers(0, T, size=(P, Hp)).astype(np.int32)
+        prog = rng.integers(0, S * C, size=(P, Hp)).astype(np.uint32)
+        ppar = rng.integers(0, 2**32, size=(P, Hp, Ep), dtype=np.uint32)
+        slot_col = rng.integers(0, C, size=(P, S, Hp)).astype(np.uint16)
+        hist = rng.integers(0, R, size=(P, S)).astype(np.int32)
+        finished = rng.integers(0, 50, size=(P,)).astype(np.int32)
+        repl_val = rng.integers(0, 2**32, size=(P, S, R, Ep),
+                                dtype=np.uint32)
+        bpar = rng.integers(0, 2**32, size=(P, S * R, Ep), dtype=np.uint32)
+        table = rng.integers(0, C, size=(P, T, S)).astype(np.uint16)
+        # unique hit slots per partition (the reservation invariant)
+        hit = np.stack(
+            [rng.choice(Hp, size=Q, replace=False) for _ in range(P)],
+            axis=1).astype(np.int32)
+        ok_q = rng.random((Q, P)) < 0.7
+        ok_r = ok_q | (rng.random((Q, P)) < 0.2)
+        ig = rng.integers(0, R, size=(Q, P)).astype(np.int32)
+        chunk = rng.integers(0, S, size=(Q, P)).astype(np.int32)
+        idxu = rng.integers(0, S * C, size=(Q, P)).astype(np.uint32)
+        resp = rng.integers(0, 2**32, size=(Q, P, Ep), dtype=np.uint32)
+        carry = tuple(jnp.asarray(x) for x in
+                      (tag, prog, ppar, slot_col, hist, finished))
+        sel = (jnp.asarray(hit), jnp.asarray(ok_q), jnp.asarray(ok_r),
+               jnp.asarray(ig), jnp.asarray(chunk), jnp.asarray(idxu),
+               None)
+        outs = {}
+        for which in ("dense", "scatter"):
+            os.environ["PACMANN_REFRESH_ROUTE"] = which
+            try:
+                outs[which] = jax.device_get(_pir_finish(
+                    jnp.asarray(repl_val), jnp.asarray(bpar),
+                    jnp.asarray(table), carry, sel, jnp.asarray(resp),
+                    C=C, R=R, Hp=Hp, S=S, k=k, dpp=0x7FFFFFFF))
+            finally:
+                del os.environ["PACMANN_REFRESH_ROUTE"]
+        for a, b in zip(jax.tree.leaves(outs["dense"]),
+                        jax.tree.leaves(outs["scatter"])):
+            assert np.array_equal(a, b), (Q, P)

@@ -4,7 +4,7 @@ trials, tol 1e-4) and TestInnerProduct correctness (:221-247)."""
 
 import numpy as np
 
-from pacmann_tpu.ops import distance
+from pacmann.ops import distance
 
 
 def _np_l2(a, b):
@@ -30,13 +30,16 @@ def test_l2_odd_dim():
     assert np.allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
-def test_l2_pallas_interpret_matches_xla():
+def test_l2_public_entry_is_exact_f32():
+    """l2_distance runs its product at HIGHEST precision: on integer-valued
+    inputs every partial sum is exact in f32, so the result must equal the
+    integer distance exactly (a TF32 product would round the cross term)."""
     rng = np.random.default_rng(2)
-    q = rng.random((17, 96), dtype=np.float32)
-    p = rng.random((300, 96), dtype=np.float32)
-    got = np.asarray(distance.l2_distance_pallas(q, p, tile_q=16, tile_b=128))
-    want = np.asarray(distance.l2_distance_xla(q, p))
-    assert np.allclose(got, want, rtol=1e-4, atol=1e-3)
+    q = rng.integers(0, 256, size=(17, 96)).astype(np.float32)
+    p = rng.integers(0, 256, size=(300, 96)).astype(np.float32)
+    got = np.asarray(distance.l2_distance(q, p))
+    want = _np_l2(q[:, None, :].astype(np.int64), p[None, :, :].astype(np.int64))
+    assert np.array_equal(got, want.astype(np.float32))
 
 
 def test_inner_product_wraps_like_u32():

@@ -4,7 +4,7 @@ fused device scan per batch/prep."""
 
 import numpy as np
 
-from pacmann_tpu.pir.engine import FusedBatchPianoPIR
+from pacmann.pir.engine import FusedBatchPianoPIR
 
 
 def _mk(rng, n=8192, entry_bytes=32, batch=32, fail=20):
@@ -73,7 +73,7 @@ def test_fused_budget_reprep():
 
 def test_fused_matches_simple_interface():
     """Cost accessors agree with the per-partition implementation."""
-    from pacmann_tpu.pir.batch import SimpleBatchPianoPIR
+    from pacmann.pir.batch import SimpleBatchPianoPIR
 
     rng = np.random.default_rng(34)
     n, eb, batch = 8192, 32, 32

@@ -3,11 +3,11 @@ same recall regime on the same graph/queries."""
 
 import numpy as np
 
-from pacmann_tpu.graph.build import build_graph
-from pacmann_tpu.graph.recall import brute_force_knn, compute_recall
-from pacmann_tpu.pir.device_engine import DevicePianoEngine
-from pacmann_tpu.private.fused_search import FusedPrivateSearch
-from pacmann_tpu.private.oracle import pack_vertex_db
+from pacmann.graph.build import build_graph
+from pacmann.graph.recall import brute_force_knn, compute_recall
+from pacmann.pir.device_engine import DevicePianoEngine
+from pacmann.private.fused_search import FusedPrivateSearch
+from pacmann.private.oracle import pack_vertex_db
 
 
 def test_fused_search_end_to_end():
@@ -223,33 +223,12 @@ def test_ensure_budget_full_group_mode():
     assert fs.last_maintenance_s == 0.0  # no mid-search refresh
 
 
-def test_fused_search_pallas_route_matches_xla():
-    """The whole fused program (claim + refresh kernels inside lax.scan)
-    produces the same answers as the dense-XLA route."""
-    rng = np.random.default_rng(13)
-    n, d, m = 1024, 8, 8
-    vectors = rng.random((n, d), dtype=np.float32)
-    graph = np.asarray(build_graph(vectors, m, rounds=2, seed=13), np.int64)
-    raw = pack_vertex_db(vectors, graph)
-    queries = np.random.default_rng(15).random((2, d)).astype(np.float32)
-    outs = {}
-    for route in ("xla", "pallas"):
-        engine = DevicePianoEngine(n, 4 * (d + m), m, raw, 8,
-                                   kernel_route=route)
-        engine.preprocessing(rng=np.random.default_rng(3))
-        sids = np.random.default_rng(14).choice(n, 32, replace=False)
-        fs = FusedPrivateSearch(engine, sids, vectors[sids], graph[sids],
-                                dim=d, m=m, n=n)
-        outs[route] = fs.search(queries, k=5, max_step=6, parallel=3, seed=1)
-    assert np.array_equal(outs["xla"], outs["pallas"])
-
-
 def test_fused_reach_steps_parity_with_host():
     """Fused mode's reach_steps (derived from the visited-table slot index,
     zero extra device work) must match the host twin's per-answer
     first-reached-step bookkeeping (search.go:210-233) for every answer the
     two paths agree on — same seeds-step-0 convention, same step indexing."""
-    from pacmann_tpu.graph.beam_host import BasicGraphOracle, BeamSearcher
+    from pacmann.graph.beam_host import BasicGraphOracle, BeamSearcher
 
     rng = np.random.default_rng(41)
     n, d, m = 2048, 16, 8
@@ -287,8 +266,8 @@ def test_fused_split_route_bit_identical():
     select / server scan / finish / update as five device programs per
     step) must be BIT-identical to the one-program scan — same answers,
     same reach steps, same device fetch stats, same protocol state. This
-    is the route the SIFT100M shard runs (the fused program faults at that
-    tier, device_engine._online)."""
+    is the route DBs above _PREP_SPLIT_DB_BYTES run (device_engine._online
+    has the same split)."""
     outs = {}
     for split in (False, True):
         fs, rng = _mk(44)

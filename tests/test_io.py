@@ -7,7 +7,7 @@ import struct
 import numpy as np
 import pytest
 
-from pacmann_tpu.io import loaders
+from pacmann.io import loaders
 
 
 def _write_vecs(path, mat, fmt):

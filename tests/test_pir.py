@@ -9,8 +9,8 @@ derivation is size-generic so this covers the same code paths.
 import numpy as np
 import pytest
 
-from pacmann_tpu.pir.params import derive_piano_params
-from pacmann_tpu.pir.piano import PianoPIR, QueryError
+from pacmann.pir.params import derive_piano_params
+from pacmann.pir.piano import PianoPIR, QueryError
 
 
 def _rand_db(rng, n, entry_u32):

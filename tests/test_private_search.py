@@ -1,6 +1,6 @@
 """End-to-end private search on synthetic data.
 
-The TPU twin of the reference's north-star path (private-search.go:71-329):
+The device twin of the reference's north-star path (private-search.go:71-329):
 entry packing, PIR-backed oracle, beam search over oblivious fetches, recall
 vs brute-force ground truth, success accounting, proactive hint refresh.
 Sizes scaled down for CI speed; full-scale runs live in bench.py.
@@ -8,13 +8,13 @@ Sizes scaled down for CI speed; full-scale runs live in bench.py.
 
 import numpy as np
 
-from pacmann_tpu.graph.build import build_graph
-from pacmann_tpu.graph.recall import brute_force_knn
-from pacmann_tpu.private.driver import (
+from pacmann.graph.build import build_graph
+from pacmann.graph.recall import brute_force_knn
+from pacmann.private.driver import (
     PrivateSearchConfig,
     run_private_search,
 )
-from pacmann_tpu.private.oracle import pack_vertex_db, unpack_entries
+from pacmann.private.oracle import pack_vertex_db, unpack_entries
 
 
 def test_entry_pack_roundtrip():
@@ -75,7 +75,7 @@ def test_report_and_outputs(tmp_path):
                             output_file=out_f, report_file=rep_f),
         vectors=vectors, graph=graph, queries=queries, gnd=gnd,
     )
-    from pacmann_tpu.io.loaders import load_int_matrix
+    from pacmann.io.loaders import load_int_matrix
 
     saved = load_int_matrix(out_f, 4, 10)
     assert np.array_equal(saved, res.answers)

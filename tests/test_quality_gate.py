@@ -11,9 +11,9 @@ drops highway edges, a beam extract-min fault) fails this test.
 
 import numpy as np
 
-from pacmann_tpu.graph.beam import PlaintextEngine
-from pacmann_tpu.graph.build import build_graph
-from pacmann_tpu.graph.recall import brute_force_knn, compute_recall
+from pacmann.graph.beam import PlaintextEngine
+from pacmann.graph.build import build_graph
+from pacmann.graph.recall import brute_force_knn, compute_recall
 
 
 def _continuum(n, d, rng, latent=16):

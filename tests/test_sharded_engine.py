@@ -1,11 +1,11 @@
 """Partition-sharded PIR engine on the 8-virtual-device CPU mesh: exact
-answers and agreement with the single-chip device engine."""
+answers and agreement with the single-device engine."""
 
 import numpy as np
 
-from pacmann_tpu.parallel.sharding import make_mesh
-from pacmann_tpu.pir.device_engine import DevicePianoEngine
-from pacmann_tpu.pir.sharded_engine import ShardedPianoEngine
+from pacmann.parallel.sharding import make_mesh
+from pacmann.pir.device_engine import DevicePianoEngine
+from pacmann.pir.sharded_engine import ShardedPianoEngine
 
 
 def test_sharded_engine_exact_answers():
@@ -115,8 +115,8 @@ def test_fused_search_over_sharded_engine_bit_identical():
     bit-identical answers to the single-chip engine — the multi-chip analog
     of a full query step, with the PIR state staying partition-sharded
     through the program."""
-    from pacmann_tpu.private.fused_search import FusedPrivateSearch
-    from pacmann_tpu.private.oracle import pack_vertex_db
+    from pacmann.private.fused_search import FusedPrivateSearch
+    from pacmann.private.oracle import pack_vertex_db
 
     rng = np.random.default_rng(40)
     n, d, m = 1024, 8, 8
@@ -142,31 +142,12 @@ def test_fused_search_over_sharded_engine_bit_identical():
     assert "shard" in str(st["primary_parity"].sharding.spec)
 
 
-def test_sharded_engine_pallas_route_exact():
-    """The Pallas claim/refresh kernels work under shard_map on the
-    partition axis (interpret mode off-TPU): per-shard grid sizes come
-    from the shard shapes, answers stay exact."""
-    mesh = make_mesh(8)
-    rng = np.random.default_rng(73)
-    n, eb, batch = 8192, 32, 32
-    raw = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
-    pir = ShardedPianoEngine(n, eb, batch, raw, 20, mesh,
-                             kernel_route="pallas")
-    pir.preprocessing(rng=np.random.default_rng(102))
-    c = pir.config
-    ids = [int(i * c.partition_size + rng.integers(0, c.partition_size))
-           for i in range(c.partition_num)]
-    out = pir.query(ids)
-    for r, idx in enumerate(ids):
-        assert np.array_equal(out[r], raw[idx]), f"row {r} idx {idx}"
-
-
 def test_chunk_sharded_matches_single_chip():
     """ChunkShardedPianoEngine (P < n_devices: SetSize axis sharded,
     XOR all-reduce over the mesh) answers BIT-identically to the
     single-chip engine given the same preprocessing/query RNG, and its DB
     shards each hold exactly S/n_dev chunks."""
-    from pacmann_tpu.pir.sharded_engine import ChunkShardedPianoEngine
+    from pacmann.pir.sharded_engine import ChunkShardedPianoEngine
 
     mesh = make_mesh(8)
     rng = np.random.default_rng(80)
@@ -208,7 +189,7 @@ def test_chunk_sharded_matches_single_chip():
 
 
 def test_chunk_sharded_rejects_indivisible_mesh():
-    from pacmann_tpu.pir.sharded_engine import ChunkShardedPianoEngine
+    from pacmann.pir.sharded_engine import ChunkShardedPianoEngine
 
     mesh = make_mesh(3)
     rng = np.random.default_rng(81)
@@ -218,3 +199,21 @@ def test_chunk_sharded_rejects_indivisible_mesh():
         assert False, "expected ValueError"
     except ValueError as e:
         assert "divisible" in str(e)
+
+
+def test_fused_search_refuses_chunk_sharded_engine():
+    """The fused program cannot reduce a chunk-sharded DB across devices
+    (XLA has no XOR all-reduce), so the wrapper refuses up front instead of
+    failing inside XLA."""
+    import pytest
+
+    from pacmann.pir.sharded_engine import ChunkShardedPianoEngine
+    from pacmann.private.fused_search import FusedPrivateSearch
+
+    mesh = make_mesh(4)
+    raw = np.random.default_rng(82).integers(0, 2**32, size=(4096, 8),
+                                             dtype=np.uint32)
+    eng = ChunkShardedPianoEngine(4096, 32, 4, raw, 20, mesh)
+    with pytest.raises(NotImplementedError, match="partition-sharded"):
+        FusedPrivateSearch(eng, np.arange(8), np.zeros((8, 4), np.float32),
+                           np.zeros((8, 4), np.int64), dim=4, m=4, n=4096)

@@ -1,19 +1,19 @@
-"""Multi-device sharding: XOR scan with ICI XOR all-reduce + distance top-k,
-on the 8-virtual-device CPU mesh (conftest forces it). This is the TPU-build
+"""Multi-device sharding: XOR scan with an XOR all-reduce + distance top-k,
+on the 8-virtual-device CPU mesh (conftest forces it). This is the device
 analog of the reference's batch-partition parallelism (batch-pir.go:62-85) —
 see SURVEY.md §5."""
 
 import numpy as np
 
-from pacmann_tpu.ops.xor_scan import xor_scan_np
-from pacmann_tpu.parallel.sharding import (
+from pacmann.ops.xor_scan import xor_scan_np
+from pacmann.parallel.sharding import (
     make_mesh,
     replicate,
     shard_db,
     sharded_l2_topk,
     sharded_xor_scan,
 )
-from pacmann_tpu.pir import layout
+from pacmann.pir import layout
 
 
 def test_sharded_xor_scan_matches_numpy():

@@ -23,7 +23,7 @@ def test_bvecs_spot_values_reference_semantics():
     """The reference's loader test asserts exact spot values on bigann
     bvecs (loader_test.go:29-35); the fixtures reproduce those values and
     the loader must surface them identically as float32."""
-    from pacmann_tpu.io.loaders import LoadFloat32Matrix, load_bvecs
+    from pacmann.io.loaders import LoadFloat32Matrix, load_bvecs
 
     v = LoadFloat32Matrix(os.path.join(FIX, "mini_base.bvecs"), 10, DIM)
     assert v.shape == (10, DIM) and v.dtype == np.float32
@@ -36,7 +36,7 @@ def test_bvecs_spot_values_reference_semantics():
 
 
 def test_fvecs_ivecs_fixture_roundtrip():
-    from pacmann_tpu.io.loaders import load_fvecs, load_ivecs
+    from pacmann.io.loaders import load_fvecs, load_ivecs
 
     q = load_fvecs(os.path.join(FIX, "mini_query.fvecs"), Q, DIM)
     g = load_ivecs(os.path.join(FIX, "mini_gnd.ivecs"), Q, K)
@@ -52,7 +52,7 @@ def test_one_command_repro_path(tmp_path, engine):
     {data}_{n}_{dim}_{m}_graph.npy cache name (+ aux record) -> private
     search -> recall + appended report. Second run must LOAD the cached
     graph (not rebuild) and reproduce the same answers."""
-    from pacmann_tpu.cli.private_search import main
+    from pacmann.cli.private_search import main
 
     for f in ("mini_base.bvecs", "mini_query.fvecs", "mini_gnd.ivecs"):
         shutil.copy(os.path.join(FIX, f), tmp_path / f)
@@ -84,8 +84,8 @@ def test_one_command_repro_path(tmp_path, engine):
     run(out2)
     assert graph_f.stat().st_mtime_ns == graph_mtime, "graph was rebuilt"
 
-    from pacmann_tpu.graph.recall import compute_recall
-    from pacmann_tpu.io.loaders import load_int_matrix
+    from pacmann.graph.recall import compute_recall
+    from pacmann.io.loaders import load_int_matrix
 
     gnd = load_int_matrix(str(tmp_path / "mini_gnd.ivecs"), Q, K)
     a1 = load_int_matrix(str(out1), Q, K)

@@ -2,8 +2,9 @@
 gather, and the partition-major variants used by the device engines."""
 
 import numpy as np
+import pytest
 
-from pacmann_tpu.ops.xor_scan import (
+from pacmann.ops.xor_scan import (
     xor_gather_multi,
     xor_gather_parts,
     xor_gather_xla,
@@ -60,112 +61,59 @@ def test_parts_kernels_match_oracle():
         assert np.array_equal(gotb[p], want), p
 
 
-def test_pallas_xor_scan_interpret():
-    """Pallas chunk-streaming kernel (interpret mode off-TPU)."""
-    from pacmann_tpu.ops.attic import xor_scan_pallas
+@pytest.mark.parametrize("S,P,C,k,T", [
+    (4, 2, 8, 2, 19),      # k > 1 entry rows, odd hint count
+    (8, 1, 16, 1, 260),    # single partition, one row per entry
+    (5, 3, 16, 3, 33),     # three rows per entry, odd chunk count
+    (1, 2, 4, 2, 1),       # one chunk, one hint
+])
+@pytest.mark.parametrize("skip_p", [0.0, 0.3, 1.0])
+def test_hint_scan_matches_oracle(S, P, C, k, T, skip_p):
+    """The hint scan the engines run (device_engine._hint_scan, the
+    lax.scan chunk stream) against the NumPy oracle, per partition, with
+    skip masks from none to all."""
+    from pacmann.pir.device_engine import _hint_scan
 
-    rng = np.random.default_rng(2)
-    db = _mk(rng, S=4, C=8, k=2)
-    off = rng.integers(0, 8, size=(16, 4), dtype=np.uint32)
-    skip = rng.random((16, 4)) < 0.2
-    got = np.asarray(xor_scan_pallas(db, off, skip, 2, block_b=8))
-    want = xor_scan_np(db, off, skip, 2)
-    assert np.array_equal(got, want)
-
-
-def test_hintgen_mm_matches_oracle():
-    """One-hot-matmul hint-gen kernel (production TPU path; interpret
-    off-TPU). Exercises hint-axis padding, skips, and full-u32 payloads."""
-    from pacmann_tpu.ops.xor_scan import xor_hintgen_mm
-
-    rng = np.random.default_rng(4)
-    for (S, P, C, k, T) in [(4, 2, 8, 2, 19), (8, 1, 16, 1, 260)]:
-        db4 = rng.integers(0, 2**32, size=(S, P, C * k, 128), dtype=np.uint32)
-        table = rng.integers(0, C, size=(P, T, S), dtype=np.uint32)
-        skip = rng.random((P, T, S)) < 0.25
-        for dot in ("s8", "bf16"):
-            got = np.asarray(xor_hintgen_mm(db4, table, skip, k, dot=dot))
-            for p in range(P):
-                want = xor_scan_np(db4[:, p], table[p], skip[p], k)
-                assert np.array_equal(got[p], want.reshape(T, k * 128)), \
-                    (dot, p)
-
-
-def test_hintgen_mm_chunk_blocking():
-    """C > 1024 routes through the chunk-sub-block grid axis (the SIFT100M
-    tier's C=8192 overflowed scoped VMEM with whole-chunk blocks); the
-    split must be XOR-neutral — bit-identical to the oracle."""
-    from pacmann_tpu.ops.xor_scan import xor_hintgen_mm
-
-    rng = np.random.default_rng(9)
-    for (S, P, C, k, T) in [(3, 1, 2048, 1, 40),   # 2 sub-blocks, 1-row
-                            (2, 2, 2048, 2, 30),   # 2 sub-blocks, k rows
-                            (2, 1, 2048, 3, 20)]:  # 1024//k=341 does not
-        # divide C: Cb must back off to a divisor or the grid silently
-        # drops the tail entries of every chunk
-        db4 = rng.integers(0, 2**32, size=(S, P, C * k, 128),
-                           dtype=np.uint32)
-        table = rng.integers(0, C, size=(P, T, S), dtype=np.uint32)
-        skip = rng.random((P, T, S)) < 0.25
-        got = np.asarray(xor_hintgen_mm(db4, table, skip, k))
-        for p in range(P):
-            want = xor_scan_np(db4[:, p], table[p], skip[p], k)
-            assert np.array_equal(got[p], want.reshape(T, k * 128)), (k, p)
-
-
-def test_pallas_hintgen_interpret():
-    """Partition-major Pallas hint-gen kernel (interpret mode off-TPU)."""
-    from pacmann_tpu.ops.attic import xor_hintgen_pallas
-
-    rng = np.random.default_rng(3)
-    S, P, C, k = 4, 2, 8, 2
+    rng = np.random.default_rng(S * 100 + T)
     db4 = rng.integers(0, 2**32, size=(S, P, C * k, 128), dtype=np.uint32)
-    B = 19  # non-multiple of the block -> exercises padding
-    off = rng.integers(0, C, size=(P, B, S), dtype=np.uint32)
-    skip = rng.random((P, B, S)) < 0.25
-    got = np.asarray(xor_hintgen_pallas(db4, off, skip, k))
+    table = rng.integers(0, C, size=(P, T, S), dtype=np.uint32)
+    skip = rng.random((P, T, S)) < skip_p
+    got = np.asarray(_hint_scan(db4, table, skip, k))
+    assert got.shape == (P, T, k * 128)
     for p in range(P):
-        want = xor_scan_np(db4[:, p], off[p], skip[p], k)
-        assert np.array_equal(got[p], want), p
+        want = xor_scan_np(db4[:, p], table[p], skip[p], k)
+        assert np.array_equal(got[p], want.reshape(T, k * 128)), p
 
 
-def test_server_scan_mm_route_matches_gather():
-    """xor_server_scan's TPU-default route (one-hot-matmul with a zero skip
-    mask, plus the (Q,P,S)<->(P,Q,S) transposes) must be bit-identical to
-    the gather path it replaces. Forced via route="mm" so the ACTUAL
-    routing branch — TPU-only by default — runs off-TPU (interpret mode)."""
-    from pacmann_tpu.ops.xor_scan import xor_server_scan
-
-    rng = np.random.default_rng(9)
-    S, P, C, k, Q = 4, 2, 8, 2, 5
+@pytest.mark.parametrize("Q,P,S,C,k", [(1, 16, 7, 32, 2), (6, 4, 5, 8, 1),
+                                       (13, 2, 3, 64, 3)])
+def test_server_scan_matches_oracle(Q, P, S, C, k):
+    """The online server scan (xor_gather_multi: one gather + XOR-reduce
+    over chunks for Q sub-queries per partition) against the oracle."""
+    rng = np.random.default_rng(Q + P + S)
     db4 = rng.integers(0, 2**32, size=(S, P, C * k, 128), dtype=np.uint32)
     qs = rng.integers(0, C, size=(Q, P, S), dtype=np.uint32)
-    want = np.asarray(xor_server_scan(db4, qs, k, route="gather"))
-    got = np.asarray(xor_server_scan(db4, qs, k, route="mm"))
-    assert np.array_equal(got, want)
-    # and the auto route off-TPU is the gather path
-    auto = np.asarray(xor_server_scan(db4, qs, k))
-    assert np.array_equal(auto, want)
+    got = np.asarray(xor_gather_multi(db4, qs, k))
+    for q in range(Q):
+        for p in range(P):
+            want = xor_scan_np(db4[:, p], qs[q, p][None],
+                               np.zeros((1, S), bool), k)[0]
+            assert np.array_equal(got[q, p], want), (q, p)
 
 
-def test_plane_major_s8_mm_matches_scan_oracle():
-    """xor_hintgen_mm_s8p (plane-major s8 DB, multi-chunk grid steps) is
-    bit-identical to the chunk-streaming scan for every chunks-per-step."""
-    import jax.numpy as jnp
-
-    from pacmann_tpu.ops.attic import to_plane_major_s8, xor_hintgen_mm_s8p
-    from pacmann_tpu.ops.xor_scan import xor_scan_parts
-
-    rng = np.random.default_rng(11)
-    S, P, C, k = 6, 3, 16, 2
-    db4 = jnp.asarray(
-        rng.integers(0, 2**32, size=(S, P, C * k, 128), dtype=np.uint32))
-    T = 20
-    table = jnp.asarray(rng.integers(0, C, size=(P, T, S), dtype=np.uint32))
-    skip = jnp.asarray(rng.random((P, T, S)) < 0.3)
-    ref = np.asarray(xor_scan_parts(db4, table, skip, k)).reshape(
-        P, T, k * 128)
-    dbp = to_plane_major_s8(db4, k)
-    for sc in (1, 2, 3, 6):
-        out = np.asarray(xor_hintgen_mm_s8p(dbp, table, skip, k, sc=sc))
-        assert np.array_equal(out, ref), sc
+@pytest.mark.parametrize("chunks_per_step", [1, 2, 4, 8])
+def test_scan_parts_chunk_blocking(chunks_per_step):
+    """xor_scan_parts folding several chunks per scan step is the same XOR
+    as one chunk per step (XOR is order-free)."""
+    rng = np.random.default_rng(17)
+    S, P, C, k, B = 8, 3, 16, 2, 21
+    db4 = rng.integers(0, 2**32, size=(S, P, C * k, 128), dtype=np.uint32)
+    off = rng.integers(0, C, size=(P, B, S), dtype=np.uint32)
+    skip = rng.random((P, B, S)) < 0.3
+    got = np.asarray(xor_scan_parts(db4, off, skip, k,
+                                    chunks_per_step=chunks_per_step))
+    for p in range(P):
+        assert np.array_equal(got[p], xor_scan_np(db4[:, p], off[p],
+                                                  skip[p], k)), p
+    with pytest.raises(ValueError, match="must divide"):
+        xor_scan_parts(db4, off, skip, k, chunks_per_step=3)
